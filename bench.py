@@ -7,7 +7,8 @@ config: CTL<0 fixed step, ifine=1) AND the conccalc scatter-add into the
 7-D output accumulator (conccalc.f90, sampled every sync step like the
 stock loutsample=lsynctime), on ~10.5M particles on one chip.  REF1-like
 setup (README_PARALLEL.md:108-118): global met grid, 0.5-deg 720x360
-output grid.  Prints ONE JSON line.
+output grid.  Prints ONE JSON line naming the device it ran on; refuses
+to run (exit non-zero) when JAX finds no GPU.
 
 vs_baseline is measured against 1.0e6 particle-steps/s, an optimistic
 single-node estimate for the Fortran reference (the repo publishes no
@@ -28,6 +29,16 @@ N_PARTICLES = 10 * 2 ** 20          # ~10.5M (chunked advance)
 N_STEPS = 10
 
 
+def device_info() -> dict:
+    """The device every result is measured on; no CPU fallback."""
+    d = jax.devices()[0]
+    if d.platform != "gpu":
+        raise SystemExit(f"bench: no GPU found (JAX platform "
+                         f"'{d.platform}'); timings are taken on a GPU only")
+    return {"platform": d.platform, "kind": d.device_kind,
+            "count": len(jax.devices())}
+
+
 def main():
     from flexpart_tpu.config import OutGrid
     from flexpart_tpu.core import StepConfig, StepParams, advance_chunked
@@ -39,6 +50,10 @@ def main():
     from flexpart_tpu.met import (calcpar, compute_heights, make_grid,
                                   process_eta, uniform_wind_met)
 
+    from flexpart_tpu.utils.compile_cache import enable_compile_cache
+
+    device = device_info()
+    enable_compile_cache()
     # global-scale met grid (reference REF1: 360x720 global grid)
     grid = make_grid(nx=361, ny=181, nlev=30, dx=1.0, dy=1.0,
                      xlon0=-180.0, ylat0=-90.0, xglobal=True)
@@ -114,6 +129,7 @@ def main():
         "value": round(psteps, 1),
         "unit": "particle-steps/s",
         "vs_baseline": round(psteps / FORTRAN_BASELINE_PSTEPS_PER_S, 2),
+        "device": device,
     }))
 
 

@@ -1,6 +1,6 @@
-"""flexpart_tpu — a TPU-native Lagrangian particle dispersion framework.
+"""flexpart_tpu — a JAX Lagrangian particle dispersion framework.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
+A from-scratch JAX/XLA re-design with the capabilities of the
 reference FLEXPART (MeteoSwiss/flexpart, Fortran+MPI): stochastic
 trajectories of air-parcel particles through gridded NWP wind fields with
 boundary-layer turbulence, convection, deposition, decay and chemistry,

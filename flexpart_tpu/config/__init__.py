@@ -3,7 +3,7 @@
 Parses the reference's namelist formats (COMMAND, RELEASES, SPECIES_nnn,
 OUTGRID, AGECLASSES, RECEPTORS, pathnames, AVAILABLE — reference readers in
 /root/reference/src/read*.f90) into immutable dataclasses that drive the
-TPU-native runtime.  All grid sizes / capacities that were compile-time
+JAX runtime.  All grid sizes / capacities that were compile-time
 constants in the reference (par_mod.f90) are runtime values here.
 """
 

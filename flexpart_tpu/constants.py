@@ -1,6 +1,6 @@
 """Physical constants and model parameters.
 
-TPU-native re-design of the reference constant set (see
+Re-design of the reference constant set (see
 /root/reference/src/par_mod.f90:59-110).  Unlike the reference, grid sizes and
 particle capacities are *runtime* configuration (carried by typed config
 objects), not compile-time constants; only true physical constants and

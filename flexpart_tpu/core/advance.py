@@ -1,6 +1,6 @@
 """The particle advance kernel: one lsynctime update for ALL particles.
 
-TPU-native re-design of the reference's per-particle integrator
+Vectorized re-design of the reference's per-particle integrator
 (/root/reference/src/advance.f90, called from the scheduler loop
 timemanager.f90:531-712): zero-acceleration advection with Petterssen
 corrector, Hanna/Langevin PBL turbulence with exact OU discretization,
@@ -71,12 +71,9 @@ class StepConfig(NamedTuple):
     met_bf16: bool = True       # store the per-step quad-corner row
     #                             tables in bfloat16 (~0.4% wind
     #                             rounding, widened to f32 right after
-    #                             the gather).  v5e: the row gather is
-    #                             granularity-bound, so 128-byte bf16
-    #                             rows fetch ~2x faster than 256-byte
-    #                             f32 rows (bench 12.0 -> 13.9M
-    #                             psteps/s); also halves the tables'
-    #                             HBM footprint.  Set False for f32
+    #                             the gather): half the bytes per row
+    #                             gather and half the tables' device
+    #                             memory.  Set False for f32
     #                             interpolation (validation studies)
     legacy_quad: bool = False   # matched-RNG validation of the
     #                             PRODUCTION interpolation path: draws
@@ -468,8 +465,13 @@ def _adaptive_interval(cfg: StepConfig, prm: StepParams, key,
         if legacy_interp:
             c0 = gather_corners_3d(z0.f3d, (0, 1, 2, 3, 4), hw, indz)
             c1 = gather_corners_3d(z1.f3d, (0, 1, 2, 3, 4), hw, indz)
-            lev = (jnp.einsum("flnc,nc->fln", c0, hw.p4) * tw0
-                   + jnp.einsum("flnc,nc->fln", c1, hw.p4) * tw1)
+            # f32 HIGHEST: a default-precision dot may run in TF32 on
+            # Hopper
+            hi = jax.lax.Precision.HIGHEST
+            lev = (jnp.einsum("flnc,nc->fln", c0, hw.p4, precision=hi)
+                   * tw0
+                   + jnp.einsum("flnc,nc->fln", c1, hw.p4, precision=hi)
+                   * tw1)
             val = lev[:, 0] * (1.0 - dz1) + lev[:, 1] * dz1
             return val[0], val[1], val[2], val[3], val[4]
         return wind10_quad(tables.rows, hw, indz, dz1, cfg.nx, cfg.ny)

@@ -13,7 +13,7 @@ REGIONAL domain-filling adds boundary conditions
 (boundcond_domainfill.f90): particles crossing the window edge are
 destroyed, and air-mass flux through every boundary-column layer is
 accumulated each step; whenever a layer's accumulated inflow reaches one
-particle-mass, a particle is created on the boundary face.  TPU-native
+particle-mass, a particle is created on the boundary face.  Vectorized
 re-design: the boundary geometry (layer thicknesses, face areas,
 vertical interpolation indices at the fixed zcolumn heights) is
 time-invariant, so it is flattened once at init into a static "site

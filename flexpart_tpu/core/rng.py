@@ -8,46 +8,16 @@ so resharding particles across chips never changes the physics.  Normal
 draws are clipped to +/-3 exactly like the reference's gasdev1
 (random_mod.f90:85-89).
 
-Two interchangeable backends:
-  * "threefry" — jax.random (threefry2x32).  Bit-stable across backends
-    and jax versions; the default everywhere.
-  * "pallas"   — the TPU's hardware PRNG via a Pallas kernel seeded per
-    (key, tag), Box-Muller transform on the raw bits.  Deterministic
-    for a given (seed, tag, shape) on TPU, but the stream differs from
-    threefry's.  Measured at end-to-end parity with threefry on v5e at
-    bench scale (10.5M particles, stock and turbulent ifine=4 configs
-    both ~±0.2%): after the quad-corner gather optimizations the draws
-    are fully overlapped with the gather-bound advance, so this backend
-    is an opt-in (`set_impl("pallas")` or FLEXTPU_RNG=pallas), kept as
-    the escape hatch for configs where draw volume grows (large ifine,
-    CBL re-draws) and as the reference Pallas use of the hardware PRNG.
-
-Both backends depend only on (key, tag, shape), so serial, dp-sharded
-and tiled executions that make the same calls draw the same numbers.
+Draws come from jax.random (threefry2x32), which is bit-stable across
+backends and jax versions and depends only on (key, tag, shape), so
+serial, dp-sharded and tiled executions that make the same calls draw
+the same numbers.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
 import jax
 import jax.numpy as jnp
-
-_IMPL = os.environ.get("FLEXTPU_RNG", "threefry")
-
-
-def set_impl(name: str) -> None:
-    """Select the draw backend: "threefry" (default) or "pallas"
-    (TPU hardware PRNG; TPU-only)."""
-    global _IMPL
-    if name not in ("threefry", "pallas"):
-        raise ValueError(name)
-    _IMPL = name
-
-
-def _use_pallas() -> bool:
-    return _IMPL == "pallas"
 
 
 def step_key(base_key: jnp.ndarray, step_index) -> jnp.ndarray:
@@ -55,72 +25,9 @@ def step_key(base_key: jnp.ndarray, step_index) -> jnp.ndarray:
     return jax.random.fold_in(base_key, step_index)
 
 
-_BLK = 8192                                    # lanes per grid step
-
-
-@functools.partial(jax.jit, static_argnames=("rows", "cols"))
-def _pallas_normals(seed2, rows: int, cols: int):
-    """(rows, cols) clipped N(0,1) from the TPU hardware PRNG.
-
-    Box-Muller on two hardware-PRNG streams.  The uniform is built from
-    the TOP 24 bits so the int->f32 conversion is exact: u in [0, 1)
-    with 2^-24 resolution, and 1-u in (0, 1] keeps the log finite.
-    Output clipped to +/-3 (gasdev1, random_mod.f90:85-89).  Each grid
-    block mixes program_id into the seed so blocks draw distinct
-    streams."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    c = -(-cols // _BLK) * _BLK
-
-    def kernel(seed_ref, out_ref):
-        # hardware seed takes at most 2 words: mix the block id into
-        # the first with a Knuth multiplicative hash
-        pid = pl.program_id(0)
-        pltpu.prng_seed(seed_ref[0] + pid * jnp.int32(-1640531527),
-                        seed_ref[1])
-
-        def u01(shape):
-            bits = pltpu.bitcast(pltpu.prng_random_bits(shape),
-                                 jnp.uint32)
-            top24 = jax.lax.shift_right_logical(
-                bits, jnp.uint32(8))
-            # top24 < 2^24, so the int32 view is exact and Mosaic can
-            # cast it (uint32->f32 is unsupported)
-            t = pltpu.bitcast(top24, jnp.int32)
-            return t.astype(jnp.float32) * (2.0 ** -24)       # [0, 1)
-
-        u1 = 1.0 - u01((rows, _BLK))                          # (0, 1]
-        u2 = u01((rows, _BLK))
-        r = jnp.sqrt(-2.0 * jnp.log(u1))
-        z = r * jnp.cos((2.0 * jnp.pi) * u2)
-        out_ref[:] = jnp.clip(z, -3.0, 3.0)
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(c // _BLK,),
-        out_shape=jax.ShapeDtypeStruct((rows, c), jnp.float32),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=pl.BlockSpec((rows, _BLK), lambda i: (0, i),
-                               memory_space=pltpu.VMEM),
-    )(seed2)
-    return out[:, :cols]
-
-
 def normals(key: jnp.ndarray, shape, tag: int = 0) -> jnp.ndarray:
     """Clipped N(0,1) draws (gasdev1-compatible distribution)."""
     k = jax.random.fold_in(key, tag)
-    if _use_pallas():
-        if isinstance(shape, int):
-            shape = (shape,)
-        rows = 1
-        for s in shape[:-1]:
-            rows *= s
-        cols = shape[-1]
-        data = (jax.random.key_data(k)
-                if jnp.issubdtype(k.dtype, jax.dtypes.prng_key) else k)
-        seed2 = data.reshape(-1)[:2].astype(jnp.int32)
-        return _pallas_normals(seed2, rows, cols).reshape(shape)
     return jnp.clip(jax.random.normal(k, shape, jnp.float32), -3.0, 3.0)
 
 

@@ -3,14 +3,14 @@
 Re-design of the reference's global particle arrays
 (com_mod.f90:675-695: itra1, npoint, nclass, idt, itramem, xtra1, ytra1,
 ztra1, xmass1 + turbulence memory uap/ucp/uzp and mesoscale memory
-uvwsig).  Differences, by TPU design:
+uvwsig).  Differences, by design:
 
   * fixed capacity N with an explicit ``active`` mask (the reference's
     sentinel itra1 = -999999999, FLEXPART.f90:315-317, becomes a bool);
   * horizontal positions in mother-grid units carried as *double-single*
     (hi+lo float32 pairs) — the reference uses real(dp) for xtra1/ytra1
-    (com_mod.f90:680); f64 is software-emulated on TPU, two-float add is
-    6 VPU flops and keeps ~48-bit mantissa for the position accumulation;
+    (com_mod.f90:680); the two-float add keeps a ~48-bit mantissa for
+    the position accumulation with f32 arithmetic only;
   * free slots are recycled by prefix-sum allocation at release time
     (core/release.py) instead of a growing count.
 """

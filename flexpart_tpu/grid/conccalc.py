@@ -98,8 +98,11 @@ def _conccalc_impl(acc, p, zf, itime, lage, weight, cfg: ConcConfig,
         indz, dz1 = vert_weights(z, zf.height)
         rho_flat = zf.f3d[F3_RHO].reshape(-1)
         lin0 = indz[:, None] * (ny_m * nx_m) + hw.idx4
-        rho_lo = jnp.einsum("nc,nc->n", rho_flat[lin0], hw.p4)
-        rho_hi = jnp.einsum("nc,nc->n", rho_flat[lin0 + ny_m * nx_m], hw.p4)
+        # f32 HIGHEST: a default-precision dot may run in TF32 on Hopper
+        hi = jax.lax.Precision.HIGHEST
+        rho_lo = jnp.einsum("nc,nc->n", rho_flat[lin0], hw.p4, precision=hi)
+        rho_hi = jnp.einsum("nc,nc->n", rho_flat[lin0 + ny_m * nx_m], hw.p4,
+                            precision=hi)
         rhoi = rho_lo * (1.0 - dz1) + rho_hi * dz1
     else:
         rhoi = jnp.ones_like(z)
@@ -129,10 +132,9 @@ def _conccalc_impl(acc, p, zf, itime, lage, weight, cfg: ConcConfig,
         # ---- direct-only fast path: ONE scatter index per particle ----
         # The caller asserts (host-side, from itime and the earliest
         # release start) that no live particle can be >= 3 h old, so the
-        # uniform kernel can never trigger (conccalc.f90:171-178).
-        # v5e: scatter cost is linear in the index count (92 ms vs
-        # 340 ms per 10.5M-particle step, scripts/bench_scatter_ab.py),
-        # so the young-plume phase samples 3.5x faster.
+        # uniform kernel can never trigger (conccalc.f90:171-178), and
+        # the young-plume phase scatters one index per particle instead
+        # of the kernel's four.
         in_grid = (ix >= 0) & (ix < cfg.nxg) & (jy >= 0) & (jy < cfg.nyg)
         valid = live & in_z & in_grid
         lin = cell * (cfg.nyg * cfg.nxg) + jy * cfg.nxg + ix

@@ -62,9 +62,12 @@ def make_initcond_scatter(outheights):
             indz, dz1 = vert_weights(z, zf.height)
             rho_flat = zf.f3d[F3_RHO].reshape(-1)
             lin0 = indz[:, None] * (ny_m * nx_m) + hw.idx4
-            rho_lo = jnp.einsum("nc,nc->n", rho_flat[lin0], hw.p4)
+            # f32 HIGHEST: a default-precision dot may run in TF32 on Hopper
+            hi = jax.lax.Precision.HIGHEST
+            rho_lo = jnp.einsum("nc,nc->n", rho_flat[lin0], hw.p4,
+                                precision=hi)
             rho_hi = jnp.einsum("nc,nc->n", rho_flat[lin0 + ny_m * nx_m],
-                                hw.p4)
+                                hw.p4, precision=hi)
             rhoi = rho_lo * (1.0 - dz1) + rho_hi * dz1
         else:
             rhoi = jnp.ones_like(z)

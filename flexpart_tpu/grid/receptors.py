@@ -71,5 +71,7 @@ def sample_receptors(creceptor, rec: ReceptorSet, p: Particles, itime,
     factor = 0.596831                      # 15/(8 pi), Epanechnikov norm
     xkern = factor * (1.0 - r2) / (hx * hy * hz)[None, :]
     w = jnp.where(inside, xkern, 0.0)                              # (R, N)
-    c = w @ p.mass                                                 # (R, ks)
+    # f32 HIGHEST: a default-precision dot may run in TF32 on Hopper
+    c = jnp.matmul(w, p.mass,
+                   precision=jax.lax.Precision.HIGHEST)            # (R, ks)
     return creceptor + 2.0 * weight * c / rec.area[:, None]

@@ -2,9 +2,8 @@
 
 High-level API: iterate a GRIB file's messages with metadata, decode
 fields into numpy arrays — the replacement for the reference's eccodes
-dependency (readwind_ecmwf.f90:50).  The shared library is built by
-`make -C native/gribdec`; an informative error points there if it is
-missing.
+dependency (readwind_ecmwf.f90:50).  The shared library is built from
+`native/gribdec/gribdec.cpp` with `make -C native/gribdec` at first use.
 """
 
 from __future__ import annotations
@@ -12,27 +11,39 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import os
+import subprocess
 from pathlib import Path
 
 import numpy as np
 
-_LIB_PATHS = [
-    Path(__file__).resolve().parents[2] / "native/gribdec/libgribdec.so",
-    Path("libgribdec.so"),
-]
+_SRC_DIR = Path(__file__).resolve().parents[2] / "native" / "gribdec"
+_LIB_PATH = _SRC_DIR / "libgribdec.so"
+
+
+def _build_lib() -> None:
+    """`make -C native/gribdec` into a private name, then an atomic rename:
+    concurrent first users (test workers) never load a half-written file."""
+    tmp = f".libgribdec.{os.getpid()}.so"
+    cmd = ["make", "-s", "-B", "-C", str(_SRC_DIR), f"OUT={tmp}", tmp]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+    except (OSError, subprocess.CalledProcessError) as e:
+        detail = getattr(e, "stderr", None) or str(e)
+        raise OSError(
+            f"building libgribdec.so failed: `{' '.join(cmd)}` (needs make "
+            f"and g++; libaec optional for CCSDS-packed GRIB2): "
+            f"{detail.strip()}") from e
+    os.replace(_SRC_DIR / tmp, _LIB_PATH)
 
 
 @functools.lru_cache(maxsize=1)
 def _lib():
-    for p in _LIB_PATHS:
-        if Path(p).exists():
-            lib = ctypes.CDLL(str(p))
-            break
-    else:
-        raise OSError(
-            "libgribdec.so not found — build it with "
-            "`make -C native/gribdec` (g++ only; libaec optional for "
-            "CCSDS-packed GRIB2)")
+    src = _SRC_DIR / "gribdec.cpp"
+    if (not _LIB_PATH.exists()
+            or _LIB_PATH.stat().st_mtime < src.stat().st_mtime):
+        _build_lib()
+    lib = ctypes.CDLL(str(_LIB_PATH))
     lib.gribdec_scan.restype = ctypes.c_long
     lib.gribdec_scan.argtypes = [ctypes.c_char_p,
                                  ctypes.POINTER(ctypes.c_long),

@@ -32,11 +32,22 @@ import numpy as np
 _DIM_WO_VAR = "This is a netCDF dimension but not a netCDF variable."
 
 
+def _h5py():
+    """h5py, imported only when netCDF output is asked for."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "netCDF output needs the h5py package; install it or run "
+            "with write_netcdf=False (npz output only)") from e
+    return h5py
+
+
 class Nc4File:
     """Minimal netCDF-4 writer (define-then-append usage)."""
 
     def __init__(self, path, global_attrs: dict | None = None):
-        import h5py
+        h5py = _h5py()
         self._h5py = h5py
         self.f = h5py.File(path, "w", libver="earliest")
         self.f.attrs.create(
@@ -142,5 +153,4 @@ class Nc4File:
 def open_nc4(path):
     """Read helper for tests: returns the h5py File (netCDF-4 files are
     HDF5 files; variables/dims are datasets)."""
-    import h5py
-    return h5py.File(path, "r")
+    return _h5py().File(path, "r")

@@ -43,8 +43,12 @@ def particle_diagnostics(p: Particles, z0, z1, tw0, tw1):
 
     def interp3(zf, fid):
         flat = zf.f3d[fid].reshape(zf.f3d.shape[1], -1)
-        lo = jnp.einsum("nc,nc->n", flat[indz[:, None], hw.idx4], hw.p4)
-        hi = jnp.einsum("nc,nc->n", flat[indz[:, None] + 1, hw.idx4], hw.p4)
+        # f32 HIGHEST: a default-precision dot may run in TF32 on Hopper
+        prec = jax.lax.Precision.HIGHEST
+        lo = jnp.einsum("nc,nc->n", flat[indz[:, None], hw.idx4], hw.p4,
+                        precision=prec)
+        hi = jnp.einsum("nc,nc->n", flat[indz[:, None] + 1, hw.idx4], hw.p4,
+                        precision=prec)
         return lo * (1.0 - dz1) + hi * dz1
 
     pv = interp3(z0, F3_PV) * tw0 + interp3(z1, F3_PV) * tw1
@@ -260,9 +264,12 @@ def averaging_sample(p: Particles, z0, z1, tw0, tw1, dx, dy, xlon0, ylat0):
 
     def interp3(zf, fid):
         flat = zf.f3d[fid].reshape(zf.f3d.shape[1], -1)
-        lo = jnp.einsum("nc,nc->n", flat[indz[:, None], hw.idx4], hw.p4)
+        # f32 HIGHEST: a default-precision dot may run in TF32 on Hopper
+        prec = jax.lax.Precision.HIGHEST
+        lo = jnp.einsum("nc,nc->n", flat[indz[:, None], hw.idx4], hw.p4,
+                        precision=prec)
         hi = jnp.einsum("nc,nc->n", flat[indz[:, None] + 1, hw.idx4],
-                        hw.p4)
+                        hw.p4, precision=prec)
         return lo * (1.0 - dz1) + hi * dz1
 
     def t3(fid):

@@ -141,7 +141,7 @@ def build_simulation(pathnames: str, met: str = "auto",
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="flexpart_tpu",
-        description="TPU-native Lagrangian particle dispersion model "
+        description="JAX Lagrangian particle dispersion model "
                     "(FLEXPART-compatible inputs)")
     ap.add_argument("pathnames", nargs="?", default="pathnames",
                     help="pathnames file (default: ./pathnames)")
@@ -181,6 +181,8 @@ def main(argv=None) -> int:
                else logging.INFO if args.verbose else logging.WARNING),
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
 
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     t0 = time.perf_counter()
     sim = build_simulation(args.pathnames, met=args.met,
                            capacity=args.capacity, seed=args.seed,

@@ -4,8 +4,8 @@ The reference keeps met data as dozens of separate global Fortran arrays in
 com_mod.f90:355-426.  Here a wind-field time level is ONE stacked 3-D array
 plus ONE stacked 2-D array (field-major, (F, nz, ny, nx) / (F, ny, nx)) so
 the particle interpolation kernel performs a single large gather per step —
-the TPU-friendly layout — plus a few specials (cloud classification, per-
-species deposition velocities).
+plus a few specials (cloud classification, per-species deposition
+velocities).
 
 ``EtaFields`` is what a met backend (GRIB decoder / synthetic generator)
 produces on the native hybrid-eta levels; ``process_eta`` in

@@ -1,6 +1,6 @@
 """Vertical transform: hybrid-eta fields -> fixed-height-grid fields.
 
-TPU-native, fully vectorized re-design of
+Fully vectorized re-design of
 /root/reference/src/verttransform_ecmwf.f90: instead of triple-nested column
 loops with stateful level searches, whole-grid cumulative integrations and a
 vmapped searchsorted produce the same terrain-following-metre fields in a few

@@ -2,7 +2,7 @@
 
 The reference replicates the full met grid on every MPI rank
 (README_PARALLEL.md:60-66); the memory ceiling this imposes is the
-compile-time `par_mod` grid dimensioning.  The TPU-native design instead
+compile-time `par_mod` grid dimensioning.  This design instead
 splits the (NF3, nz, ny, nx) field stack into lat/lon tiles with a halo
 ring sized by the maximum per-step particle displacement (CFL) plus the
 interpolation stencil, so each chip holds only its tile:

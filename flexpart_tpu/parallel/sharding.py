@@ -1,6 +1,6 @@
-"""Particle data-parallelism over a TPU device mesh.
+"""Particle data-parallelism over a device mesh.
 
-TPU-native replacement for the reference's MPI layer (mpi_mod.f90, 2977
+Replacement for the reference's MPI layer (mpi_mod.f90, 2977
 LoC; see SURVEY.md §2.8): instead of per-rank particle arrays with
 explicit MPI transfers (`mpif_redist_part`, mpi_mod.f90:661-858) and
 blocking field broadcasts (`mpif_gf_send_vars`, :1258-1427), the SoA

@@ -53,8 +53,8 @@ def choose_tile_mesh(n_devices: int, ny: int, nx_field: int):
     """Pick (nty, ntx) with nty*ntx == n_devices, preferring
     factorizations that divide the met grid exactly and, among those,
     an aspect ratio matching the grid's.  When no factorization
-    divides (standard ECMWF 361x181-row grids on an 8-device mesh,
-    VERDICT r4 weak #5), fall back to CEIL-sized tiles with minimal
+    divides (standard ECMWF 361x181-row grids on an 8-device mesh),
+    fall back to CEIL-sized tiles with minimal
     padding: the pad rows/cols are pole-clamped / seam-wrapped by
     `_tile_indices` and no particle ever enters them (positions stay
     < ny-1 / wrap at the true cyclic width), so the physics is

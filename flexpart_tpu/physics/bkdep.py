@@ -34,7 +34,9 @@ def assign_drybkdep(p: Particles, vdep_field) -> Particles:
     ny, nx = vdep_field.shape[1], vdep_field.shape[2]
     hw = horiz_weights(p.x, p.y, nx, ny, False)
     flat = vdep_field.reshape(vdep_field.shape[0], -1)
-    vd = jnp.einsum("snc,nc->sn", flat[:, hw.idx4], hw.p4)   # (nspec, N)
+    # f32 HIGHEST: a default-precision dot may run in TF32 on Hopper
+    vd = jnp.einsum("snc,nc->sn", flat[:, hw.idx4], hw.p4,
+                    precision=jax.lax.Precision.HIGHEST)     # (nspec, N)
     vd = vd.T                                                # (N, nspec)
     xs = jnp.where(fresh[:, None], jnp.maximum(vd, 0.0), p.xscav)
     mass = jnp.where(fresh[:, None] & (vd <= 0.0), 0.0, p.mass)

@@ -1,6 +1,6 @@
 """Convective redistribution: Emanuel (1991) buoyancy-sorting scheme.
 
-TPU re-design of the reference convection stack — convmix.f90 (driver),
+Re-design of the reference convection stack — convmix.f90 (driver),
 calcmatrix.f90 (matrix assembly), convect43c.f90 (Emanuel CONVECT v4.3c as
 adapted for FLEXPART: only the displacement matrix FMASS, compensating
 subsidence SUB and the cloud-base-mass-flux memory CBMF matter for an

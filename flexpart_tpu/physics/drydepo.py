@@ -1,6 +1,6 @@
 """Dry-deposition velocity field: Wesely resistance chain, vectorized.
 
-TPU re-design of the reference per-column chain getvdep.f90 (ra+rb+rc over
+Re-design of the reference per-column chain getvdep.f90 (ra+rb+rc over
 13 landuse classes) + getrb.f90 + getrc.f90 + raerod.f90/psih.f90 +
 partdep.f90 (aerosol size bins), computed for the WHOLE grid at once per
 wind field (called from the getfields pipeline like calcpar.f90:170-186).

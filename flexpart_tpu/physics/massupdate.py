@@ -75,7 +75,9 @@ def apply_decay_drydep(p: Particles, vdep_field, lsynctime, ldeltat,
         ny_m, nx_m = vdep_field.shape[1], vdep_field.shape[2]
         hw = horiz_weights(p.x, p.y, nx_m, ny_m, False)
         flat = vdep_field.reshape(nspec, ny_m * nx_m)
-        vd = jnp.einsum("snc,nc->sn", flat[:, hw.idx4], hw.p4)  # (nspec,N)
+        # f32 HIGHEST: a default-precision dot may run in TF32 on Hopper
+        vd = jnp.einsum("snc,nc->sn", flat[:, hw.idx4], hw.p4,
+                        precision=jax.lax.Precision.HIGHEST)  # (nspec,N)
         if t_below is not None:
             prob = 1.0 - jnp.exp(-vd * t_below[None, :] / (2.0 * HREF))
         else:

@@ -1,6 +1,6 @@
 """Wet deposition: scavenging coefficients + mass removal, vectorized.
 
-TPU re-design of wetdepo.f90 + get_wetscav.f90: per particle per sync
+Re-design of wetdepo.f90 + get_wetscav.f90: per particle per sync
 interval, gather precip/cloud fields at the particle, compute the
 scavenging coefficient Lambda per species (below-cloud gas A*P^B /
 aerosol Laakso-rain & Kyro-snow polynomials; in-cloud via cloud water,

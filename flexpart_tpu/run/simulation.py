@@ -100,8 +100,8 @@ class Simulation:
     #                                  reference's TURB_OPTION=0 debug
     #                                  switch); deterministic paths only
     met_bf16: bool = True            # bfloat16 per-step interpolation
-    #                                  tables (StepConfig.met_bf16, ~2x
-    #                                  on the gather-bound advance);
+    #                                  tables (StepConfig.met_bf16, half
+    #                                  the bytes of the row gather);
     #                                  False = f32 interpolation, needed
     #                                  when two differently-compiled
     #                                  programs must produce bit-equal
@@ -421,7 +421,7 @@ class Simulation:
                                           make_tiled_depo_scatter,
                                           make_tiled_wetscav, tile_mesh,
                                           zero_tile_acc_partials)
-            # Supported in tiles mode (r5): convection, OH chemistry,
+            # Supported in tiles mode: convection, OH chemistry,
             # receptors and gross fluxes run on the SHARDED particle
             # buffers with replicated auxiliary fields — GSPMD inserts
             # the cross-device reductions (receptor sampling is a
@@ -448,9 +448,9 @@ class Simulation:
                                         self.grid.nxfield)
             from ..parallel.domain import halo_for
             # halo from the ACTUAL first-interval max wind (+25%
-            # gust/meso margin), not a hardcoded cap (VERDICT r4 weak
-            # #5); the probed read is stashed as a completed prefetch
-            # so the first _get_field reuses it
+            # gust/meso margin), not a hardcoded cap; the probed read is
+            # stashed as a completed prefetch so the first _get_field
+            # reuses it
             umax = 100.0
             try:
                 t0p = 0 if cmd.ldirect > 0 else -self.wind_interval
@@ -704,8 +704,7 @@ class Simulation:
         except Exception:
             # reader thread unavailable: the run degrades to
             # synchronous reads in _get_field — make that VISIBLE
-            # (r4 VERDICT weak #6: a dead reader silently cost the
-            # async-getfields overlap)
+            # (a dead reader silently costs the async-getfields overlap)
             self._prefetch_failures += 1
             log.warning("met prefetch submission failed for t=%ss "
                         "(failure #%d); falling back to synchronous "
@@ -1019,6 +1018,12 @@ class Simulation:
             loutend = loutnext + loutaver // 2
         for istep in range(first_step, nsteps + 1):
             itime = istep * lsync
+            if istep == first_step + 1:
+                # the first step carries the compiles: mark where the
+                # steady-state window begins
+                self.timings["first_step_wall_s"] = (
+                    _time.perf_counter() - t_wall0)
+                self.timings["first_step_particle_steps"] = particle_steps
             if self.checkpoint_at is not None \
                     and itime == self.checkpoint_at \
                     and start_itime != itime:
@@ -1311,9 +1316,7 @@ class Simulation:
             self.timers.add("advance", dt_adv)
             if "advance_first_s" not in self.timings:
                 # dominated by the XLA compile of the advance program
-                # (adaptive/CBL configs compile slowest); surfaced so
-                # per-config compile cost is a published number, not a
-                # judge-discovered surprise
+                # (adaptive/CBL configs compile slowest)
                 self.timings["advance_first_s"] = round(dt_adv, 2)
             if self.use_initcond and pre_state is not None:
                 # post-migration baseline for the drydep/age death scan

@@ -9,7 +9,7 @@ Companions to validation.oracle for the matched 48-h validation run:
 * `oracle_wetscav` is a scalar transcription of the scavenging
   coefficient chain (get_wetscav.f90: precip area fractions, below-cloud
   gas A*P^B / aerosol Laakso-Kyro polynomials, in-cloud Henry /
-  activated-fraction splits) following the TPU path's field-sampling
+  activated-fraction splits) following the kernel path's field-sampling
   convention (single nearest-time field, bilinear precip/tcc,
   cell-centre clouds/T — physics/wetdepo.py documents the deviation
   from interpol_rain's two-field time blend);
@@ -18,7 +18,7 @@ Companions to validation.oracle for the matched 48-h validation run:
 
 These exist solely as test fixtures for tests/test_matched_chernobyl.py
 (no Fortran toolchain in this image); they are written from the Fortran
-sources, not from the TPU kernels they check.
+sources, not from the kernels they check.
 """
 
 from __future__ import annotations

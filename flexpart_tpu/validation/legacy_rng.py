@@ -11,7 +11,7 @@ These ports reproduce the integer arithmetic exactly (all state is
 Python ints; the float outputs are single-precision-safe because the
 generators only produce values of the form k/1e9 or k*am with exact
 f32-representable factors applied at the end), so a matched-stream
-comparison between the TPU kernel in legacy-RNG mode and the scalar
+comparison between the kernel in legacy-RNG mode and the scalar
 oracle of advance.f90 consumes bitwise-identical random numbers.
 """
 

@@ -4,11 +4,11 @@ A line-by-line host-side (numpy float32) transcription of
 /root/reference/src/advance.f90 (fixed-step path, method=0/CTL<0),
 initialize.f90, hanna.f90, hanna1.f90, interpol_all.f90 and
 interpol_wind{,_short}.f90, consuming the SAME `rannumb` table and
-`nrand` index chase as the Fortran (legacy_rng).  It exists so the TPU
+`nrand` index chase as the Fortran (legacy_rng).  It exists so the
 kernel can be validated under matched RNG streams: the reference binary
 is not buildable here (no Fortran toolchain), so this oracle is the
 executable form of the reference's arithmetic, written from the Fortran
-sources, NOT from the TPU kernel.
+sources, NOT from the JAX kernel.
 
 Scope: mother grid only, no nests, no polar-stereographic caps, no CBL,
 no adaptive substepping — the stock-COMMAND fixed-step configuration
@@ -384,7 +384,7 @@ def _viscosity(t):
 
 def _settling(prm: OracleParams, itp: _Interp, xt, yt, zt):
     """get_settling.f90:100-127 at the particle position (T, rho from the
-    first time level, nearest column — mirrors the TPU kernel's settling
+    first time level, nearest column — mirrors the kernel's settling
     gather which uses z0 and the rounded column)."""
     nix = min(max(int(round(xt)), 0), prm.nx - 1)
     njy = min(max(int(round(yt)), 0), prm.ny - 1)

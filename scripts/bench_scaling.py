@@ -1,21 +1,22 @@
-"""Weak-scaling harness (VERDICT r4 item 7; reference scaling study
-README_PARALLEL.md:108-142): particle-steps/s at 1/2/4/8 devices for
+"""Weak-scaling harness (reference scaling study
+README_PARALLEL.md:108-142): particle-steps/s at 1/2/4 devices for
 both distributed modes, holding PARTICLES PER DEVICE constant (weak
 scaling).  Emits one JSON line per (mode, n_devices) point and a
 summary line with the efficiency vs the 1-device run.
 
-    python scripts/bench_scaling.py [--devices 1,2,4,8] [--modes dp,tiles]
-                                    [--per-device 131072] [--platform cpu]
+    python scripts/bench_scaling.py [--devices 1,2,4] [--modes dp,tiles]
+                                    [--per-device 131072] [--platform gpu]
 
-On this machine only the virtual CPU mesh is available
-(--xla_force_host_platform_device_count): all "devices" share the host
-cores, so wall-clock efficiency is NOT hardware scaling — the numbers
-measure sharding logic/collective overhead only.  On a TPU pod slice
-the same script runs unmodified (--platform tpu) and reports true
-weak-scaling efficiency (the >=85% north-star row of BASELINE.md).
+On GPUs each point sees only its first n cards (CUDA_VISIBLE_DEVICES)
+and reports weak-scaling efficiency (the >=85% north-star row of
+BASELINE.md).  `--platform cpu` runs the same points on a virtual CPU
+mesh (--xla_force_host_platform_device_count) whose "devices" share the
+host cores: that checks sharding logic only and measures no scaling.
 
 Each point runs in a SUBPROCESS because the device count must be fixed
-before jax initializes.
+before jax initializes; the parent never imports jax, so one process at
+a time holds the cards.  Any failed point makes the script exit
+non-zero.
 """
 import argparse
 import json
@@ -26,20 +27,21 @@ import sys
 
 def run_point(ndev: int, mode: str, per_device: int, platform: str):
     """One (mode, ndev) measurement in this process.  Prints JSON."""
+    import tempfile
+
     import jax
     if platform == "cpu":
         jax.config.update("jax_platforms", "cpu")
-    import time
-
-    import jax.numpy as jnp
-    import numpy as np
+    elif jax.devices()[0].platform != "gpu":
+        raise SystemExit(f"no GPU found: {jax.devices()}")
 
     from flexpart_tpu.config import (Command, OutGrid, ReleaseBox,
                                      Releases, Species)
     from flexpart_tpu.met import SyntheticMet, make_grid
     from flexpart_tpu.run.simulation import Simulation
 
-    assert len(jax.devices()) >= ndev, (ndev, jax.devices())
+    if len(jax.devices()) < ndev:
+        raise SystemExit(f"need {ndev} devices, have {jax.devices()}")
     n = per_device * ndev
     grid = make_grid(nx=73, ny=36, nlev=20, dx=5.0, dy=5.0)
     cmd = Command(ibdate=20200101, ibtime=0, iedate=20200101,
@@ -53,9 +55,7 @@ def run_point(ndev: int, mode: str, per_device: int, platform: str):
     og = OutGrid(outlon0=-180.0, outlat0=-90.0, numxgrid=72,
                  numygrid=36, dxout=5.0, dyout=5.0,
                  outheights=(500.0, 2000.0, 50000.0))
-    import shutil
-    outdir = f"/tmp/bench_scaling_{mode}_{ndev}"
-    shutil.rmtree(outdir, ignore_errors=True)
+    outdir = tempfile.mkdtemp(prefix=f"bench_scaling_{mode}_{ndev}_")
     sim = Simulation(cmd=cmd, releases=Releases(species=(sp,),
                                                 boxes=(box,)),
                      grid=grid, met_backend=SyntheticMet(grid),
@@ -76,11 +76,11 @@ def run_point(ndev: int, mode: str, per_device: int, platform: str):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--devices", default="1,2,4,8")
+    ap.add_argument("--devices", default="1,2,4")
     ap.add_argument("--modes", default="dp,tiles")
     ap.add_argument("--per-device", type=int, default=131072)
-    ap.add_argument("--platform", default="cpu",
-                    choices=("cpu", "tpu"))
+    ap.add_argument("--platform", default="gpu",
+                    choices=("gpu", "cpu"))
     ap.add_argument("--single", nargs=2, metavar=("NDEV", "MODE"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -93,6 +93,7 @@ def main():
     devices = [int(d) for d in args.devices.split(",")]
     modes = args.modes.split(",")
     results = {}
+    failed = []
     for mode in modes:
         for nd in devices:
             env = dict(os.environ)
@@ -104,6 +105,8 @@ def main():
                 env["XLA_FLAGS"] = (
                     env.get("XLA_FLAGS", "")
                     + f" --xla_force_host_platform_device_count={nd}")
+            else:
+                env["CUDA_VISIBLE_DEVICES"] = ",".join(map(str, range(nd)))
             out = subprocess.run(
                 [sys.executable, os.path.abspath(__file__),
                  "--single", str(nd), mode,
@@ -114,11 +117,12 @@ def main():
                     os.path.abspath(__file__))))
             line = [ln for ln in out.stdout.splitlines()
                     if ln.startswith("{")]
-            if not line:
+            if out.returncode != 0 or not line:
                 print(json.dumps({"metric": f"scaling_{mode}",
                                   "n_devices": nd, "error":
                                   out.stderr.strip()[-400:]}),
                       flush=True)
+                failed.append((mode, nd))
                 continue
             row = json.loads(line[-1])
             print(line[-1], flush=True)
@@ -138,6 +142,8 @@ def main():
                                    if args.platform == "cpu" else
                                    "hardware weak scaling")}),
               flush=True)
+    if failed:
+        sys.exit(f"failed points: {failed}")
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@ clwc=246, ciwc=247, oro=129, sdor=160, lsm=172).
 
 Usage: python grib2npz.py AVAILABLE metdata_dir out_dir
 
-Requires cfgrib or eccodes — NOT available in the TPU runtime image;
+Requires cfgrib or eccodes, which the runtime image does not ship;
 run it wherever the GRIB archive lives.  The runtime itself is
 GRIB-free by design (SURVEY.md §2: GRIB decode stays host-side).
 """

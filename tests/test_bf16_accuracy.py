@@ -1,6 +1,5 @@
-"""Quantified accuracy of the bfloat16 met-table default (VERDICT r4
-weak #2/item 1c): the production advance kernel stores its per-step
-quad-corner row tables in bfloat16 (StepConfig.met_bf16=True — the
+"""Quantified accuracy of the bfloat16 met-table default: the production
+advance kernel stores its per-step quad-corner row tables in bfloat16 (StepConfig.met_bf16=True — the
 configuration every benchmark number runs).  This test runs the 48-h
 Chernobyl-style deposition scenario (fixed-step ifine=4, turbswitch,
 wet+dry deposition, 3-day-half-life decay) twice with IDENTICAL
@@ -17,117 +16,27 @@ integrator adds on top dominates the rounding, and the deposition
 mass path is insensitive to it.  The asserted bounds (2% / 0.5%) leave
 headroom for platform-dependent rounding while still catching any
 future change that makes bf16 materially lossy.
+
+The scenario lives in flexpart_tpu.validation.scenario48 (shared with
+chip_smoke.py, which checks the same bounds on the GPU).
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flexpart_tpu.config import OutGrid
-from flexpart_tpu.core import StepConfig, StepParams, advance_all
-from flexpart_tpu.core.state import empty_particles
-from flexpart_tpu.grid.conccalc import ConcConfig, make_conccalc
-from flexpart_tpu.grid.outgrid import OutputGridGeometry, zero_accumulators
-from flexpart_tpu.met import calcpar, compute_heights, make_grid, process_eta
-from flexpart_tpu.met.synthetic import SyntheticMet
-from flexpart_tpu.physics import MassSpecies, WetSpecies, apply_wetdepo
-from flexpart_tpu.physics.massupdate import apply_decay_drydep
-from flexpart_tpu.physics.wetdepo import wetscav_all
+from flexpart_tpu.validation import scenario48 as sc
 
-LSYNC = 900
-WIND_IV = 10800
-HOURS = 48
-NSTEPS = HOURS * 3600 // LSYNC
 N = 10000
-DRYVEL = 0.008
-DECAY = 0.693147 / (3.0 * 86400.0)
 
 
 @pytest.fixture(scope="module")
 def setup48():
-    grid = make_grid(nx=61, ny=31, nlev=20, dx=6.0, dy=1.0,
-                     xlon0=-180.0, ylat0=35.0, xglobal=True)
-    met = SyntheticMet(grid)
-    height = compute_heights(grid, met.fetch(0.0))
-    fields = []
-    for k in range(HOURS * 3600 // WIND_IV + 1):
-        eta = met.fetch(float(k * WIND_IV))
-        fields.append(calcpar(grid, eta, process_eta(grid, eta, height)))
-    return grid, fields
-
-
-def _run(grid, fields, met_bf16: bool):
-    wsp = (WetSpecies(wetdep=True, is_aerosol=True, weta_gas=-9.9e-10,
-                      wetb_gas=-9.9, crain_aero=1.0, csnow_aero=1.0,
-                      ccn_aero=0.9, in_aero=0.1, henry=-9.9e-10,
-                      dquer=0.4),)
-    msp = MassSpecies(decay=(DECAY,), drydep=(True,), minmass=1e-4)
-    vdep_field = jnp.full((1, grid.ny, grid.nx), DRYVEL, jnp.float32)
-    rs = np.random.RandomState(5)
-    x0 = rs.uniform(24.0, 27.0, N)
-    y0 = rs.uniform(13.0, 17.0, N)
-    z0r = rs.uniform(20.0, 1500.0, N)
-    cfg = StepConfig(nx=grid.nx, ny=grid.ny, nz=grid.nlev, xglobal=True,
-                     ldirect=1, turbswitch=True, ifine=4, method=0,
-                     met_bf16=met_bf16)
-    prm = StepParams.make(dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0,
-                          dxconst=grid.dxconst, dyconst=grid.dyconst,
-                          lsynctime=LSYNC, fine=0.25, ctl=-5.0,
-                          lwindinterv=WIND_IV)
-    p = empty_particles(N)
-    p = p._replace(x_hi=jnp.asarray(x0, jnp.float32),
-                   y_hi=jnp.asarray(y0, jnp.float32),
-                   z=jnp.asarray(z0r, jnp.float32),
-                   itra=jnp.zeros(N, jnp.int32),
-                   itramem=jnp.full(N, -1, jnp.int32),
-                   mass=jnp.ones((N, 1), jnp.float32),
-                   mass0=jnp.ones((N, 1), jnp.float32),
-                   active=jnp.ones(N, bool))
-    key = jax.random.PRNGKey(7)
-    for k in range(NSTEPS):
-        itime = k * LSYNC
-        iv = itime // WIND_IV
-        zA, zB = fields[iv], fields[iv + 1]
-        if k > 0:
-            interp_t = itime - LSYNC // 2
-            ivw = interp_t // WIND_IV
-            use0 = abs(ivw * WIND_IV - interp_t) \
-                < abs((ivw + 1) * WIND_IV - interp_t)
-            zw = fields[ivw] if use0 else fields[ivw + 1]
-            lam, grfrac = wetscav_all(p, zw, jnp.int32(itime),
-                                      jnp.int32(LSYNC), wsp, False)
-            p, _ = apply_wetdepo(p, lam, grfrac, jnp.int32(LSYNC),
-                                 jnp.int32(0), msp)
-        kk = jax.random.fold_in(key, k)
-        p, diag = advance_all(p, zA, zB, jnp.int32(itime),
-                              jnp.int32(iv * WIND_IV),
-                              jnp.int32((iv + 1) * WIND_IV), kk, cfg, prm)
-        p, _ = apply_decay_drydep(p, vdep_field, jnp.int32(LSYNC),
-                                  jnp.int32(0), msp, has_vdep=True,
-                                  t_below=diag.t_below)
-    og = OutGrid(outlon0=-180.0, outlat0=35.0, numxgrid=90, numygrid=15,
-                 dxout=4.0, dyout=2.0, outheights=(500.0, 2000.0, 20000.0))
-    geo = OutputGridGeometry(og, grid)
-    ccfg = ConcConfig(nxg=geo.nxg, nyg=geo.nyg, nzg=geo.nzg,
-                      npointspec=1, nclassunc=1, nage=1,
-                      dxout=og.dxout, dyout=og.dyout,
-                      xoutshift=geo.xoutshift, youtshift=geo.youtshift,
-                      dx_met=grid.dx, dy_met=grid.dy, ind_samp=0)
-    conccalc = make_conccalc(og.outheights)
-    acc = zero_accumulators(geo, 1, 1, 1, 1)
-    lage = jnp.asarray([999999999], jnp.int32)
-    acc = conccalc(acc, p._replace(itra=jnp.full(N, NSTEPS * LSYNC,
-                                                 jnp.int32)),
-                   fields[-1], jnp.int32(NSTEPS * LSYNC), lage,
-                   jnp.float32(1.0), ccfg)
-    return (np.asarray(acc.gridunc), float(np.asarray(p.mass).sum()),
-            int(np.asarray(p.active).sum()))
+    return sc.setup48()
 
 
 def test_bf16_concentration_error_bound(setup48):
     grid, fields = setup48
-    g32, m32, a32 = _run(grid, fields, met_bf16=False)
-    g16, m16, a16 = _run(grid, fields, met_bf16=True)
+    g32, m32, a32 = sc.bf16_run(grid, fields, met_bf16=False, n=N)
+    g16, m16, a16 = sc.bf16_run(grid, fields, met_bf16=True, n=N)
     assert a32 == N and a16 == N
     # deposition must have acted (test exercises the mass path)
     assert m32 < 0.7 * N

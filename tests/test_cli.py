@@ -2,12 +2,15 @@
 + AVAILABLE + met archive) driven through `python -m flexpart_tpu`,
 asserting the success banner and output files — the analog of the
 reference's utils/test/test_flexpart.py:54-89 e2e contract."""
+import os
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
+
+REPO = Path(__file__).resolve().parents[1]
 
 COMMAND = """&COMMAND
  LDIRECT=1,
@@ -79,14 +82,20 @@ def jobdir(tmp_path_factory):
     return job
 
 
-def test_cli_end_to_end(jobdir):
-    res = subprocess.run(
+@pytest.fixture(scope="module")
+def cli_run(jobdir):
+    """One `python -m flexpart_tpu` run of the job; the tests that read
+    its outputs depend on this fixture, so each xdist worker has them."""
+    return subprocess.run(
         [sys.executable, "-m", "flexpart_tpu", str(jobdir / "pathnames"),
          "-v"],
-        capture_output=True, text=True, timeout=560,
-        cwd="/root/repo",
-        env={**__import__("os").environ, "JAX_PLATFORMS": "cpu",
-             "PYTHONPATH": "/root/repo"})
+        capture_output=True, text=True, timeout=560, cwd=REPO,
+        env={**os.environ, "JAX_PLATFORMS": "cpu",
+             "PYTHONPATH": str(REPO)})
+
+
+def test_cli_end_to_end(jobdir, cli_run):
+    res = cli_run
     assert res.returncode == 0, res.stderr[-2000:]
     assert ("CONGRATULATIONS: YOU HAVE SUCCESSFULLY COMPLETED A "
             "FLEXPART MODEL RUN!") in res.stdout
@@ -112,23 +121,22 @@ def test_cli_release_outside_window_rejected(jobdir):
         res = subprocess.run(
             [sys.executable, "-m", "flexpart_tpu",
              str(jobdir / "pathnames")],
-            capture_output=True, text=True, timeout=300,
-            cwd="/root/repo",
-            env={**__import__("os").environ, "JAX_PLATFORMS": "cpu",
-                 "PYTHONPATH": "/root/repo"})
+            capture_output=True, text=True, timeout=300, cwd=REPO,
+            env={**os.environ, "JAX_PLATFORMS": "cpu",
+                 "PYTHONPATH": str(REPO)})
         assert res.returncode != 0
     finally:
         (jobdir / "options" / "COMMAND").write_text(orig)
 
 
-def test_cli_warm_start_ipin(jobdir):
+def test_cli_warm_start_ipin(jobdir, cli_run):
     """IPIN=1 resumes from the previous run's partposit_end
     (FLEXPART.f90:322-333): the new Simulation must carry the dumped
     particles in addition to its own scheduled releases."""
     from flexpart_tpu.main import build_simulation
 
     dump = jobdir / "output" / "partposit_end"
-    assert dump.exists(), "needs test_cli_end_to_end to run first"
+    assert dump.exists(), cli_run.stderr[-2000:]
     opts = jobdir / "options"
     orig = (opts / "COMMAND").read_text()
     (opts / "COMMAND").write_text(orig.replace("IPIN=0", "IPIN=1"))

@@ -329,3 +329,13 @@ def test_nxshift_rotation(tmp_path):
         np.testing.assert_allclose(t9[:, j9], t0[:, j0], rtol=1e-6)
     # cyclic duplicate column still consistent
     np.testing.assert_allclose(t9[:, -1], t9[:, 0])
+
+
+def test_build_failure_names_the_command(monkeypatch):
+    """libgribdec.so is built from source at first use; when the tool
+    chain is missing the error says which command to run."""
+    def no_make(*a, **k):
+        raise FileNotFoundError("make")
+    monkeypatch.setattr(gribio.subprocess, "run", no_make)
+    with pytest.raises(OSError, match=r"make -s -B -C .*native/gribdec"):
+        gribio._build_lib()

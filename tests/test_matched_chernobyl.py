@@ -1,6 +1,6 @@
 """The BASELINE.md correctness row at full scale: a 48-h Chernobyl-style
 matched-RNG run (CTL=5 adaptive stepping, ifine=4, turbswitch, wet+dry
-deposition and decay on an aerosol species) comparing the TPU kernels
+deposition and decay on an aerosol species) comparing the kernels
 against the scalar reference oracles under bitwise-identical rannumb/ran3
 streams, with release positions drawn through the reference's exact ran1
 consumption order (releaseparticles.f90:147-193) and the final gridded
@@ -10,258 +10,50 @@ Every mass-path term (wet scavenging coefficient, grid fraction,
 exponential removal, decay factor, dry-deposition probability window,
 minmass bookkeeping) feeds the comparison: drift in any of them fails
 the allclose.
-"""
-import math
 
-import jax
-import jax.numpy as jnp
+The scenario itself lives in flexpart_tpu.validation.scenario48 (shared
+with chip_smoke.py).
+"""
 import numpy as np
 import pytest
 
-from flexpart_tpu.config import OutGrid
-from flexpart_tpu.core import StepConfig, StepParams, advance_all
-from flexpart_tpu.core.advance import LegacyRnd
-from flexpart_tpu.core.state import empty_particles
-from flexpart_tpu.grid.conccalc import ConcConfig, make_conccalc
-from flexpart_tpu.grid.outgrid import OutputGridGeometry, zero_accumulators
-from flexpart_tpu.met import (calcpar, compute_heights, make_grid,
-                              process_eta)
-from flexpart_tpu.met.synthetic import SyntheticMet
-from flexpart_tpu.physics import MassSpecies, WetSpecies, apply_wetdepo
-from flexpart_tpu.physics.massupdate import apply_decay_drydep
-from flexpart_tpu.physics.wetdepo import wetscav_all
-from flexpart_tpu.validation.depo_oracle import (legacy_release,
-                                                 oracle_drydecay_mass,
-                                                 oracle_wetdepo_mass,
-                                                 oracle_wetscav)
-from flexpart_tpu.validation.legacy_rng import (MAXRAND, NrandStream,
-                                                make_rannumb)
-from flexpart_tpu.validation.oracle import OracleParams, run_oracle
-
-SEED = -7
-LSYNC = 900
-WIND_IV = 10800                  # 3-h met interval
-HOURS = 48
-NSTEPS = HOURS * 3600 // LSYNC   # 192
-N = 36
-DRYVEL = 0.008                   # prescribed vdep [m/s]
-DECAY = 0.693147 / (3.0 * 86400.0)   # 3-day half-life: visible decay
-
-
-class _NpZ:
-    def __init__(self, zf):
-        self.f3d = np.asarray(zf.f3d)
-        self.f2d = np.asarray(zf.f2d)
-        self.clouds = np.asarray(zf.clouds)
-        self.height = np.asarray(zf.height)
+from flexpart_tpu.validation import scenario48 as sc
 
 
 @pytest.fixture(scope="module")
 def setup48():
-    # global-in-x grid over the synthetic storm band (|lat|~50)
-    grid = make_grid(nx=61, ny=31, nlev=20, dx=6.0, dy=1.0,
-                     xlon0=-180.0, ylat0=35.0, xglobal=True)
-    met = SyntheticMet(grid)
-    height = compute_heights(grid, met.fetch(0.0))
-    fields = []
-    for k in range(HOURS * 3600 // WIND_IV + 1):
-        eta = met.fetch(float(k * WIND_IV))
-        z = process_eta(grid, eta, height)
-        fields.append(calcpar(grid, eta, z))
-    return grid, fields, height
-
-
-SP = dict(is_aerosol=True, dquer=0.4, crain_aero=1.0, csnow_aero=1.0,
-          ccn_aero=0.9, in_aero=0.1, weta_gas=-9.9e-10, wetb_gas=-9.9,
-          henry=-9.9e-10)
-
-
-def _wet_species():
-    return (WetSpecies(wetdep=True, is_aerosol=True, weta_gas=-9.9e-10,
-                       wetb_gas=-9.9, crain_aero=1.0, csnow_aero=1.0,
-                       ccn_aero=0.9, in_aero=0.1, henry=-9.9e-10,
-                       dquer=0.4),)
+    return sc.setup48()
 
 
 def test_matched_chernobyl_48h(setup48):
-    grid, fields, height = setup48
-    cfg = StepConfig(nx=grid.nx, ny=grid.ny, nz=grid.nlev,
-                     xglobal=True, ldirect=1, turbswitch=True,
-                     ifine=4, method=1)
-    prm = StepParams.make(dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0,
-                          dxconst=grid.dxconst, dyconst=grid.dyconst,
-                          lsynctime=LSYNC, fine=0.25, ctl=5.0,
-                          lwindinterv=WIND_IV)
-    oprm = OracleParams(nx=grid.nx, ny=grid.ny, nz=grid.nlev,
-                        xglobal=True, ldirect=1, turbswitch=True,
-                        ifine=4, lsynctime=LSYNC, lwindinterv=WIND_IV,
-                        dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0,
-                        dxconst=float(grid.dxconst),
-                        dyconst=float(grid.dyconst),
-                        method=1, ctl=5.0, vdep=DRYVEL)
-
-    # release through the reference's ran1 draw order
-    box = dict(lon1=-30.0, lon2=-20.0, lat1=48.0, lat2=52.0,
-               z1=20.0, z2=1500.0)
-    x0, y0, nclass0, zrel = legacy_release(
-        box, N, nclassunc=1, xlon0=grid.xlon0, ylat0=grid.ylat0,
-        dx=grid.dx, dy=grid.dy, seed=SEED)
-
-    # ---------------- kernel side ----------------
-    p = empty_particles(N)
-    p = p._replace(x_hi=jnp.asarray(x0, jnp.float32),
-                   y_hi=jnp.asarray(y0, jnp.float32),
-                   z=jnp.asarray(zrel),
-                   itra=jnp.zeros(N, jnp.int32),
-                   itramem=jnp.full(N, -1, jnp.int32),
-                   mass=jnp.ones((N, 1), jnp.float32),
-                   mass0=jnp.ones((N, 1), jnp.float32),
-                   active=jnp.ones(N, bool))
-    table = jnp.asarray(make_rannumb(MAXRAND, SEED))
-    stream = NrandStream(SEED, MAXRAND)
-    key = jax.random.PRNGKey(0)
-    msp = MassSpecies(decay=(DECAY,), drydep=(True,), minmass=1e-4)
-    wsp = _wet_species()
-    vdep_field = jnp.full((1, grid.ny, grid.nx), DRYVEL, jnp.float32)
-    mass_k_steps = []
-    for k in range(NSTEPS):
-        itime = k * LSYNC
-        iv = itime // WIND_IV
-        mt0, mt1 = iv * WIND_IV, (iv + 1) * WIND_IV
-        zA, zB = fields[iv], fields[iv + 1]
-        # wet deposition over the interval ENDING at itime
-        # (timemanager.f90:164-169)
-        if k > 0:
-            interp_t = itime - LSYNC // 2
-            ivw = interp_t // WIND_IV
-            use0 = abs(ivw * WIND_IV - interp_t) \
-                < abs((ivw + 1) * WIND_IV - interp_t)
-            zw = fields[ivw] if use0 else fields[ivw + 1]
-            lam, grfrac = wetscav_all(p, zw, jnp.int32(itime),
-                                      jnp.int32(LSYNC), wsp, False)
-            p, _wdep = apply_wetdepo(p, lam, grfrac, jnp.int32(LSYNC),
-                                     jnp.int32(0), msp)
-        active = np.asarray(p.active)
-        ni = np.ones(N, np.int64)
-        na = np.ones(N, np.int64)
-        for j in range(N):
-            if not active[j]:
-                continue
-            if k == 0:
-                ni[j] = stream.next_nrand()
-            na[j] = stream.next_nrand()
-        leg = LegacyRnd(table=table,
-                        nrand_init=jnp.asarray(ni, jnp.int32),
-                        nrand=jnp.asarray(na, jnp.int32))
-        p, diag = advance_all(p, zA, zB, jnp.int32(itime),
-                              jnp.int32(mt0), jnp.int32(mt1), key, cfg,
-                              prm, leg=leg)
-        # decay + dry deposition with the in-kernel t_below window
-        p, _ddep = apply_decay_drydep(p, vdep_field, jnp.int32(LSYNC),
-                                      jnp.int32(0), msp, has_vdep=True,
-                                      t_below=diag.t_below)
-        mass_k_steps.append(np.asarray(p.mass[:, 0]).copy())
-    assert bool(np.all(np.asarray(p.active))), "kernel lost particles"
-
-    # ---------------- oracle side ----------------
-    parts = [dict(xt=np.float64(x0[j]), yt=np.float64(y0[j]),
-                  zt=np.float32(zrel[j]), mass=np.float32(1.0))
-             for j in range(N)]
-    stream_o = NrandStream(SEED, MAXRAND)
-    states = [dict(s) for s in parts]
-    nstops = [0] * N
-    mass_o_steps = []
-    trace_o = []
-    for k in range(NSTEPS):
-        itime = k * LSYNC
-        iv = itime // WIND_IV
-        mt0, mt1 = iv * WIND_IV, (iv + 1) * WIND_IV
-        zA, zB = _NpZ(fields[iv]), _NpZ(fields[iv + 1])
-        if k > 0:
-            interp_t = itime - LSYNC // 2
-            ivw = interp_t // WIND_IV
-            use0 = abs(ivw * WIND_IV - interp_t) \
-                < abs((ivw + 1) * WIND_IV - interp_t)
-            zw = _NpZ(fields[ivw] if use0 else fields[ivw + 1])
-            for j, s in enumerate(states):
-                if nstops[j]:
-                    continue
-                lam, grf = oracle_wetscav(zw, float(s["xt"]),
-                                          float(s["yt"]),
-                                          float(s["zt"]), SP)
-                s["mass"], _dep = oracle_wetdepo_mass(
-                    s["mass"], lam, grf, LSYNC, 0, DECAY)
-        # one advance step for all particles (shares run_oracle's
-        # per-step ordering)
-        states, nstops, tr = run_oracle(
-            oprm, zA, zB, (mt0, mt1), states, 1, itime0=itime,
-            seed=SEED, stream=stream_o, nstops=nstops,
-            do_init=(k == 0))
-        trace_o.append(np.asarray(tr[0], np.float64))
-        for j, s in enumerate(states):
-            if nstops[j]:
-                continue
-            s["mass"], _dd = oracle_drydecay_mass(
-                s["mass"], s.get("prob", 0.0), LSYNC, 0, DECAY, True)
-        mass_o_steps.append(np.asarray([s["mass"] for s in states]))
-    assert all(s == 0 for s in nstops), "oracle lost particles"
+    grid, fields = setup48
+    run = sc.matched_chernobyl(grid, fields)
+    n = sc.N_MATCHED
+    assert run.kernel_active, "kernel lost particles"
+    assert all(s == 0 for s in run.oracle_nstops), "oracle lost particles"
 
     # ---------------- per-step mass comparison ----------------
     # matched streams keep trajectories within f32 roundoff; a particle
     # within roundoff of a DISCRETE branch boundary (the cell-based
     # cloud classification of get_wetscav, the ldt truncation, the z>h
     # exit) can flip it and diverge individually — so require near-all
-    # particles to match tightly AND the ensemble mass to agree closely
-    for k in (0, NSTEPS // 4, NSTEPS // 2, NSTEPS - 1):
-        mk, mo = mass_k_steps[k], mass_o_steps[k]
-        close = np.isclose(mk, mo, rtol=5e-3, atol=1e-7)
+    # particles to match tightly (rtol=5e-3, atol=1e-7) AND the ensemble
+    # mass to agree closely
+    for k, frac, drift in sc.chernobyl_mass_match(run):
         # individual flips accumulate ~linearly with steps; a systematic
         # mass-path bug flips everything at once
-        min_frac = 0.9 if k < NSTEPS // 2 else 0.8
-        assert close.mean() >= min_frac, \
-            f"step {k}: only {close.sum()}/{N} particle masses match"
-        assert abs(mk.sum() - mo.sum()) <= 0.02 * mo.sum(), \
-            f"step {k}: ensemble mass drift {mk.sum()} vs {mo.sum()}"
+        min_frac = 0.9 if k < sc.NSTEPS // 2 else 0.8
+        assert frac >= min_frac, \
+            f"step {k}: only {frac * n:.0f}/{n} particle masses match"
+        assert drift <= 0.02, f"step {k}: ensemble mass drift {drift}"
     # deposition must actually remove mass over the 48 h
-    assert mass_k_steps[-1].sum() < 0.7 * N, \
+    assert run.mass_k_steps[-1].sum() < 0.7 * n, \
         "deposition/decay did not act — test not exercising the mass path"
 
     # ------- gridded concentrations through the REAL conccalc kernel ----
-    og = OutGrid(outlon0=-180.0, outlat0=35.0, numxgrid=90, numygrid=15,
-                 dxout=4.0, dyout=2.0, outheights=(500.0, 2000.0, 20000.0))
-    geo = OutputGridGeometry(og, grid)
-    ccfg = ConcConfig(nxg=geo.nxg, nyg=geo.nyg, nzg=geo.nzg,
-                      npointspec=1, nclassunc=1, nage=1,
-                      dxout=og.dxout, dyout=og.dyout,
-                      xoutshift=geo.xoutshift, youtshift=geo.youtshift,
-                      dx_met=grid.dx, dy_met=grid.dy, ind_samp=0)
-    conccalc = make_conccalc(og.outheights)
-    lage = jnp.asarray([999999999], jnp.int32)
-    zlast = fields[-1]
-    final_itime = NSTEPS * LSYNC
-
-    def gridded(xs, ys, zs, masses):
-        po = empty_particles(N)
-        po = po._replace(
-            x_hi=jnp.asarray(xs, jnp.float32),
-            y_hi=jnp.asarray(ys, jnp.float32),
-            z=jnp.asarray(zs, jnp.float32),
-            itra=jnp.full(N, final_itime, jnp.int32),
-            itramem=jnp.full(N, -1, jnp.int32),
-            mass=jnp.asarray(masses, jnp.float32)[:, None],
-            active=jnp.ones(N, bool))
-        acc = zero_accumulators(geo, 1, 1, 1, 1)
-        acc = conccalc(acc, po, zlast, jnp.int32(final_itime), lage,
-                       jnp.float32(1.0), ccfg)
-        return np.asarray(acc.gridunc)
-
-    gk = gridded(np.asarray(p.x), np.asarray(p.y), np.asarray(p.z),
-                 mass_k_steps[-1])
-    go = gridded(trace_o[-1][:, 0], trace_o[-1][:, 1],
-                 trace_o[-1][:, 2], mass_o_steps[-1])
     # matched streams keep trajectories within f32 roundoff of each
     # other; a particle within roundoff of a kernel-cell edge can land
     # one cell over, so compare as a relative L1 discrepancy
-    l1 = np.abs(gk - go).sum() / max(go.sum(), 1e-12)
+    l1 = np.abs(run.gk - run.go).sum() / max(run.go.sum(), 1e-12)
     assert l1 < 0.05, f"gridded concentration L1 mismatch {l1}"
-    assert go.sum() > 0
+    assert run.go.sum() > 0

@@ -1,8 +1,7 @@
-"""BASELINE.md correctness row at production-driver scale (VERDICT r4
-item 4): a 48-h Chernobyl-style run with 10,240 particles through the
-REAL `Simulation.run` scheduler in legacy-RNG mode, with the species
-parsed verbatim from the reference's `options/SPECIES/SPECIES_016`
-(Cs-137) and the nclassunc=3 uncertainty machinery engaged.
+"""BASELINE.md correctness row at production-driver scale: a 48-h
+Chernobyl-style run with 10,240 particles through the REAL
+`Simulation.run` scheduler in legacy-RNG mode, with the species parsed
+verbatim from the reference's `options/SPECIES/SPECIES_016` (Cs-137) and the nclassunc=3 uncertainty machinery engaged.
 
 Validation chain:
   * every stochastic draw in the driver comes from the reference's

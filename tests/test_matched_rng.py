@@ -1,241 +1,39 @@
-"""Matched-RNG validation: the TPU advance kernel vs the scalar oracle.
+"""Matched-RNG validation: the advance kernel vs the scalar oracle.
 
-The oracle (flexpart_tpu.validation.oracle) is a line-by-line host-side
-transcription of /root/reference/src/advance.f90 + initialize.f90 (the
-reference binary is not buildable here — no Fortran toolchain — so the
-oracle is the executable form of the reference's arithmetic).  Both
-sides consume the SAME rannumb gaussian table (random_mod.f90:93-139
-ported exactly in validation.legacy_rng) with the SAME per-particle
-`nrand` index chase in reference consumption order, so every random
-draw is bitwise identical; any drift between kernel and oracle is a
-physics/arithmetic discrepancy, not stochastic spread.
+Kernel and oracle consume bitwise-identical rannumb/ran3 streams, so
+any drift is a physics/arithmetic discrepancy, not stochastic spread;
+the set-up, the case matrix and the comparison live in
+flexpart_tpu.validation.matched (shared with chip_smoke.py).
 
 This is the matched-stream comparison BASELINE.md's correctness row
 asks for (gridded concentrations allclose under bitwise-seeded RNG).
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from flexpart_tpu.core import StepConfig, StepParams, advance_all
-from flexpart_tpu.core.advance import LegacyRnd
-from flexpart_tpu.core.state import empty_particles
-from flexpart_tpu.met import (calcpar, compute_heights, make_grid,
-                              process_eta)
-from flexpart_tpu.met.synthetic import SyntheticMet
-from flexpart_tpu.validation.legacy_rng import (MAXRAND, NrandStream,
-                                                make_rannumb)
-from flexpart_tpu.validation.oracle import OracleParams, run_oracle
-
-SEED = -7
-LSYNC = 900
-MEMTIME = (0, 10800)
-
-
-class _NpZ:
-    """Numpy view of a ZFields for the scalar oracle."""
-
-    def __init__(self, zf):
-        self.f3d = np.asarray(zf.f3d)
-        self.f2d = np.asarray(zf.f2d)
-        self.height = np.asarray(zf.height)
+from flexpart_tpu.validation import matched
 
 
 @pytest.fixture(scope="module")
 def met_setup():
-    grid = make_grid(nx=61, ny=31, nlev=20, dx=1.0, dy=1.0,
-                     xlon0=0.0, ylat0=10.0, xglobal=False)
-    met = SyntheticMet(grid)
-    height = compute_heights(grid, met.fetch(0.0))
-    zs = []
-    for t in (0.0, float(MEMTIME[1])):
-        eta = met.fetch(t)
-        z = process_eta(grid, eta, height)
-        z = calcpar(grid, eta, z)
-        zs.append(z)
-    return grid, zs[0], zs[1], height
-
-
-def _start_positions(n):
-    """Positions spread over the domain; z spans PBL / troposphere /
-    tropopause transition / stratosphere, away from branch boundaries."""
-    rs = np.random.RandomState(42)
-    x = rs.uniform(8.0, 50.0, n)
-    y = rs.uniform(5.0, 25.0, n)
-    z = np.concatenate([
-        rs.uniform(20.0, 400.0, n - 3 * (n // 4)),     # PBL-ish
-        rs.uniform(3000.0, 7000.0, n // 4),            # troposphere
-        rs.uniform(11300.0, 11700.0, n // 4),          # transition band
-        rs.uniform(16000.0, 19000.0, n // 4),          # stratosphere
-    ])
-    return x, y, z
-
-
-def _run_kernel_legacy(grid, z0, z1, x, y, z, nsteps, cfg, prm,
-                       seed=SEED, memtime=MEMTIME, itime0=0, stream=None,
-                       p=None, first=True, cbl_probe=None):
-    """Drive advance_all in legacy-RNG mode, drawing the per-particle
-    nrand bases host-side in the reference's consumption order
-    (timemanager.f90:553-611: per particle, initialize-then-advance at
-    the release step, advance only afterwards).  Pass stream/p back in
-    to continue across wind intervals.
-
-    cbl_probe: OracleParams for cblflag runs — the harness then mirrors
-    initialize_cbl_vel.f90's dcas/dcas1 chain draws for fresh particles
-    in strongly convective PBL columns (the branch condition is probed
-    host-side with the oracle's interpolator on the same met)."""
-    n = len(x)
-    if p is None:
-        p = empty_particles(n, nspec=cfg.nspec)
-        p = p._replace(x_hi=jnp.asarray(x, jnp.float32),
-                       y_hi=jnp.asarray(y, jnp.float32),
-                       z=jnp.asarray(z, jnp.float32),
-                       itra=jnp.zeros(n, jnp.int32),
-                       itramem=jnp.full(n, -1, jnp.int32),
-                       mass=jnp.ones((n, cfg.nspec), jnp.float32),
-                       active=jnp.ones(n, bool))
-    table = jnp.asarray(make_rannumb(MAXRAND, seed))
-    if stream is None:
-        stream = NrandStream(seed, MAXRAND)
-    key = jax.random.PRNGKey(0)          # unused in legacy mode
-    traj = []
-    for kk in range(nsteps):
-        k = kk if first else kk + 1      # k==0 gates the init draws
-        itime = itime0 + kk * LSYNC
-        active = np.asarray(p.active)
-        ni = np.ones(n, np.int64)
-        na = np.ones(n, np.int64)
-        dcas = np.zeros(n, np.float32)
-        dcas1 = np.zeros(n, np.float32)
-        if cbl_probe is not None and k == 0:
-            from flexpart_tpu.validation.oracle import _Interp
-            itp0 = _Interp(cbl_probe, _NpZ(z0), _NpZ(z1),
-                           itime0, memtime)
-        xs, ys, zs = (np.asarray(p.x_hi, np.float64),
-                      np.asarray(p.y_hi, np.float64),
-                      np.asarray(p.z, np.float64))
-        for j in range(n):
-            if not active[j]:
-                continue                  # terminated: consumes nothing
-            if k == 0:
-                ni[j] = stream.next_nrand()
-                if cbl_probe is not None:
-                    # initialize.f90:142-149 chain consumption mirror
-                    ix, jy, ixp, jyp, _, _, _ = itp0.corners(xs[j], ys[j])
-                    h = max(itp0.hmix_max(ix, jy, ixp, jyp), 1.0)
-                    if zs[j] / h <= 1.0:
-                        _, _, ol, _, _, _, _ = itp0.profiles(
-                            xs[j], ys[j], np.float32(zs[j]))
-                        if -h / ol > 5.0:
-                            dcas[j] = stream.uniform()
-                            dcas1[j] = stream.gasdev()
-            na[j] = stream.next_nrand()
-        leg = LegacyRnd(table=table,
-                        nrand_init=jnp.asarray(ni, jnp.int32),
-                        nrand=jnp.asarray(na, jnp.int32),
-                        cbl_dcas=(jnp.asarray(dcas)
-                                  if cbl_probe is not None else None),
-                        cbl_dcas1=(jnp.asarray(dcas1)
-                                   if cbl_probe is not None else None))
-        p, diag = advance_all(p, z0, z1, jnp.int32(itime),
-                              jnp.int32(memtime[0]), jnp.int32(memtime[1]),
-                              key, cfg, prm, leg=leg)
-        traj.append(np.stack([
-            np.float64(p.x_hi) + np.float64(p.x_lo),
-            np.float64(p.y_hi) + np.float64(p.y_lo),
-            np.float64(p.z)], 1))
-    return p, traj
-
-
-def _run_oracle(grid, z0, z1, x, y, z, nsteps, oprm, seed=SEED):
-    parts = [dict(xt=np.float64(x[j]), yt=np.float64(y[j]),
-                  zt=np.float32(z[j])) for j in range(len(x))]
-    states, nstops, trace = run_oracle(
-        oprm, _NpZ(z0), _NpZ(z1), MEMTIME, parts, nsteps,
-        itime0=0, seed=seed)
-    return states, nstops, [np.asarray(t, np.float64) for t in trace]
-
-
-def _params(grid, turbswitch, ifine, settling=False, method=0, ctl=-5.0,
-            **sp):
-    cfg = StepConfig(nx=grid.nx, ny=grid.ny, nz=grid.nlev,
-                     xglobal=grid.xglobal, ldirect=1,
-                     turbswitch=turbswitch, ifine=ifine, method=method,
-                     settling=settling)
-    prm = StepParams.make(dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0,
-                          dxconst=grid.dxconst, dyconst=grid.dyconst,
-                          lsynctime=LSYNC, fine=1.0 / ifine, ctl=ctl,
-                          lwindinterv=abs(MEMTIME[1] - MEMTIME[0]), **sp)
-    oprm = OracleParams(nx=grid.nx, ny=grid.ny, nz=grid.nlev,
-                        xglobal=grid.xglobal, ldirect=1,
-                        turbswitch=turbswitch, ifine=ifine,
-                        lsynctime=LSYNC, method=method, ctl=ctl,
-                        lwindinterv=abs(MEMTIME[1] - MEMTIME[0]),
-                        dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0,
-                        dxconst=float(grid.dxconst),
-                        dyconst=float(grid.dyconst),
-                        settling=settling,
-                        sp_density=sp.get("sp_density", -1.0),
-                        sp_dquer=sp.get("sp_dquer", 0.0),
-                        sp_cunningham=sp.get("sp_cunningham", 0.0),
-                        sp_vsetaver=sp.get("sp_vsetaver", 0.0))
-    return cfg, prm, oprm
-
-
-def _compare(traj_k, trace_o, nstops, atol_xy=5e-3, atol_z=2.0):
-    """Per-step position comparison; terminated particles are compared
-    up to their last live step only."""
-    nsteps = len(traj_k)
-    for k in range(nsteps):
-        alive = np.asarray(nstops) == 0
-        ok = traj_k[k]
-        oo = trace_o[k]
-        np.testing.assert_allclose(ok[alive, 0], oo[alive, 0],
-                                   atol=atol_xy, rtol=0,
-                                   err_msg=f"x step {k}")
-        np.testing.assert_allclose(ok[alive, 1], oo[alive, 1],
-                                   atol=atol_xy, rtol=0,
-                                   err_msg=f"y step {k}")
-        np.testing.assert_allclose(ok[alive, 2], oo[alive, 2],
-                                   atol=atol_z, rtol=1e-4,
-                                   err_msg=f"z step {k}")
+    return matched.met_setup()
 
 
 @pytest.mark.parametrize("turbswitch,ifine", [(True, 1), (False, 1),
                                               (True, 4)])
 def test_matched_positions(met_setup, turbswitch, ifine):
-    grid, z0, z1, height = met_setup
-    cfg, prm, oprm = _params(grid, turbswitch, ifine)
-    n = 28
-    x, y, z = _start_positions(n)
-    nsteps = 4
-    pk, traj_k = _run_kernel_legacy(grid, z0, z1, x, y, z, nsteps, cfg,
-                                    prm)
-    states, nstops, trace_o = _run_oracle(grid, z0, z1, x, y, z, nsteps,
-                                          oprm)
+    run = matched.case_positions(met_setup, turbswitch, ifine)
     # no particle may exit (would desync the host-side nrand chase)
-    assert all(s == 0 for s in nstops)
-    assert bool(np.all(np.asarray(pk.active)))
-    _compare(traj_k, trace_o, nstops)
+    assert all(s == 0 for s in run.nstops)
+    assert bool(np.all(np.asarray(run.pk.active)))
+    matched.compare(run)
 
 
 def test_matched_positions_settling(met_setup):
     """Heavy-aerosol settling active (get_settling.f90 iteration)."""
-    grid, z0, z1, height = met_setup
-    sp = dict(sp_density=2500.0, sp_dquer=10.0, sp_cunningham=1.02,
-              sp_vsetaver=-0.02)
-    cfg, prm, oprm = _params(grid, True, 1, settling=True, **sp)
-    n = 20
-    x, y, z = _start_positions(n)
-    z = np.clip(z, 50.0, 9000.0)     # keep away from the strat branches
-    nsteps = 4
-    pk, traj_k = _run_kernel_legacy(grid, z0, z1, x, y, z, nsteps, cfg,
-                                    prm)
-    states, nstops, trace_o = _run_oracle(grid, z0, z1, x, y, z, nsteps,
-                                          oprm)
-    assert all(s == 0 for s in nstops)
-    _compare(traj_k, trace_o, nstops)
+    run = matched.case_settling(met_setup)
+    assert all(s == 0 for s in run.nstops)
+    matched.compare(run)
 
 
 def test_matched_positions_adaptive(met_setup):
@@ -246,61 +44,30 @@ def test_matched_positions_adaptive(met_setup):
     per-pass vertical re-interpolation, the idt carry-over between sync
     intervals, and mid-interval PBL-exit -> free-troposphere
     completion."""
-    grid, z0, z1, height = met_setup
-    cfg, prm, oprm = _params(grid, True, 2, method=1, ctl=5.0)
-    n = 24
-    x, y, z = _start_positions(n)
-    nsteps = 4
-    pk, traj_k = _run_kernel_legacy(grid, z0, z1, x, y, z, nsteps, cfg,
-                                    prm)
-    states, nstops, trace_o = _run_oracle(grid, z0, z1, x, y, z, nsteps,
-                                          oprm)
-    assert all(s == 0 for s in nstops)
-    assert bool(np.all(np.asarray(pk.active)))
+    run = matched.case_adaptive(met_setup)
+    assert all(s == 0 for s in run.nstops)
+    assert bool(np.all(np.asarray(run.pk.active)))
     # adaptive runs many substeps per interval -> more f32 roundoff
     # than the fixed-step comparison
-    _compare(traj_k, trace_o, nstops, atol_xy=2e-2, atol_z=5.0)
+    assert (run.atol_xy, run.atol_z) == (2e-2, 5.0)
+    matched.compare(run)
     # the stored next-step idt must agree too (it gates the Petterssen
     # corrector and the next interval's first pass)
-    idt_k = np.asarray(pk.idt)
-    idt_o = np.asarray([s["idt"] for s in states])
+    idt_k = np.asarray(run.pk.idt)
+    idt_o = np.asarray([s["idt"] for s in run.states])
     assert (idt_k == idt_o).mean() > 0.8, (idt_k, idt_o)
 
 
 def test_matched_concentrations(met_setup):
     """BASELINE.md correctness row at test scale: gridded concentrations
     from kernel and oracle trajectories under matched RNG streams are
-    allclose (16 sync steps = a 4-h episode; the binning follows
+    allclose (12 sync steps = a 3-h episode; the binning follows
     conccalc.f90's uniform-kernel nearest-cell rule for young plumes)."""
-    grid, z0, z1, height = met_setup
-    cfg, prm, oprm = _params(grid, True, 1)
-    n = 60
-    rs = np.random.RandomState(7)
-    x = rs.uniform(20.0, 30.0, n)
-    y = rs.uniform(12.0, 18.0, n)
-    z = rs.uniform(20.0, 600.0, n)
-    nsteps = 12
-    pk, traj_k = _run_kernel_legacy(grid, z0, z1, x, y, z, nsteps, cfg,
-                                    prm)
-    states, nstops, trace_o = _run_oracle(grid, z0, z1, x, y, z, nsteps,
-                                          oprm)
-    assert all(s == 0 for s in nstops)
-
-    def gridded(traj):
-        acc = np.zeros((grid.ny, grid.nx))
-        for step in traj:
-            ix = np.clip(np.round(step[:, 0]).astype(int), 0, grid.nx - 1)
-            iy = np.clip(np.round(step[:, 1]).astype(int), 0, grid.ny - 1)
-            low = step[:, 2] < 3000.0
-            np.add.at(acc, (iy[low], ix[low]), 1.0 / n)
-        return acc
-
-    ck = gridded(traj_k)
-    co = gridded([t for t in trace_o])
+    run, l1 = matched.case_concentrations(met_setup)
+    assert all(s == 0 for s in run.nstops)
     # matched streams: identical trajectories up to f32 roundoff, so the
     # binned fields agree except for particles within roundoff of a cell
     # edge — allow a tiny L1 discrepancy
-    l1 = np.abs(ck - co).sum() / max(co.sum(), 1e-12)
     assert l1 < 0.02, f"gridded concentration L1 mismatch {l1}"
 
 
@@ -309,60 +76,11 @@ def test_matched_across_wind_intervals(met_setup):
     (two 3-h wind intervals, 24 sync steps total): the ran3 chain, the
     turbulence memory, and the interpolation time weights must all
     carry over exactly (timemanager.f90:311-346 memtime rotation)."""
-    grid, z0, z1, height = met_setup
-    # third time level: reuse z0 (fields differ between z0/z1 so the
-    # temporal interpolation is still exercised in both intervals)
-    z2 = z0
-    cfg, prm, oprm = _params(grid, True, 1)
-    n = 16
-    x, y, z = _start_positions(n)
-    per = MEMTIME[1] // LSYNC            # steps per interval
-
-    pk, traj1 = _run_kernel_legacy(grid, z0, z1, x, y, z, per, cfg, prm)
-    stream_k = None  # rebuilt below: recreate to keep helper simple
-    # rebuild the host stream state by replay, then continue interval 2
-    stream_k = NrandStream(SEED, MAXRAND)
-    for j in range(n):
-        stream_k.next_nrand()            # init draws, step 0
-        stream_k.next_nrand()            # advance draws, step 0
-    for _ in range(per - 1):
-        for j in range(n):
-            stream_k.next_nrand()
-    pk, traj2 = _run_kernel_legacy(grid, z1, z2, x, y, z, per, cfg, prm,
-                                   memtime=(MEMTIME[1], 2 * MEMTIME[1]),
-                                   itime0=MEMTIME[1], stream=stream_k,
-                                   p=pk, first=False)
-
-    parts = [dict(xt=np.float64(x[j]), yt=np.float64(y[j]),
-                  zt=np.float32(z[j])) for j in range(n)]
-    stream_o = NrandStream(SEED, MAXRAND)
-    states, nstops, trace1 = run_oracle(
-        oprm, _NpZ(z0), _NpZ(z1), MEMTIME, parts, per, itime0=0,
-        seed=SEED, stream=stream_o)
-    states, nstops, trace2 = run_oracle(
-        oprm, _NpZ(z1), _NpZ(z2), (MEMTIME[1], 2 * MEMTIME[1]), states,
-        per, itime0=MEMTIME[1], seed=SEED, stream=stream_o,
-        nstops=nstops, do_init=False)
-    assert all(s == 0 for s in nstops)
-    assert bool(np.all(np.asarray(pk.active)))
-    _compare(traj1 + traj2,
-             [np.asarray(t, np.float64) for t in trace1 + trace2],
-             nstops, atol_xy=2e-2, atol_z=5.0)
-
-
-def _make_convective(zf, split_x=30):
-    """Patch the 2-D diagnostics to a strong-CBL state: hmix=1500 m,
-    wstar=1.8 m/s, L=-25 m (-h/L=60, skewed branch) east of x=split_x
-    and L=-1200 m (-h/L=1.25, weak-Gaussian branch) west of it."""
-    from flexpart_tpu.met.fields import F2_HMIX, F2_OLI, F2_WSTAR
-    f2 = np.array(np.asarray(zf.f2d))
-    ny, nx = f2.shape[-2:]
-    oli = np.full((ny, nx), 1.0 / -1200.0, np.float32)
-    oli[:, split_x:] = 1.0 / -25.0
-    f2[F2_HMIX] = 1500.0
-    f2[F2_WSTAR] = 1.8
-    f2[F2_OLI] = oli
-    return zf._replace(f2d=jnp.asarray(f2))
+    run = matched.case_wind_intervals(met_setup)
+    assert all(s == 0 for s in run.nstops)
+    assert bool(np.all(np.asarray(run.pk.active)))
+    assert (run.atol_xy, run.atol_z) == (2e-2, 5.0)
+    matched.compare(run)
 
 
 def test_matched_positions_cbl(met_setup):
@@ -372,29 +90,20 @@ def test_matched_positions_cbl(met_setup):
     bitwise-shared rannumb/ran3 streams, including the fresh-particle
     initialize_cbl_vel draw and the reference's meso-draw-base quirk
     (advance.f90:499 skips the static nrand advance when cblflag=1)."""
-    grid, z0, z1, height = met_setup
-    z0c, z1c = _make_convective(z0), _make_convective(z1)
-    # ifine=8 -> dtf=112 s: particles near the PBL top (tlw ~ 270 s)
-    # take the skewed dtftlw<0.5 path, lower ones (tlw <= 220 s) the
-    # reference's dtftlw>=0.5 normalized-update quirk branch — real CBL
-    # runs mix both, so the matched test does too
-    cfg, prm, oprm = _params(grid, True, 8)
-    cfg = cfg._replace(cblflag=True)
-    oprm.cblflag = True
-    n = 24
-    rs = np.random.RandomState(11)
-    # half in the weak-Gaussian west, half in the skewed east; z spans
-    # quirk-branch (low) and skewed-branch (near PBL top) regimes
-    x = np.concatenate([rs.uniform(12.0, 26.0, n // 2),
-                        rs.uniform(34.0, 50.0, n // 2)])
-    y = rs.uniform(6.0, 24.0, n)
-    z = np.concatenate([rs.uniform(100.0, 1100.0, n // 2),
-                        rs.uniform(1300.0, 1450.0, n // 2)])
-    nsteps = 4
-    pk, traj_k = _run_kernel_legacy(grid, z0c, z1c, x, y, z, nsteps,
-                                    cfg, prm, cbl_probe=oprm)
-    states, nstops, trace_o = _run_oracle(grid, z0c, z1c, x, y, z,
-                                          nsteps, oprm)
-    assert all(s == 0 for s in nstops)
-    assert bool(np.all(np.asarray(pk.active)))
-    _compare(traj_k, trace_o, nstops)
+    run = matched.case_cbl(met_setup)
+    assert all(s == 0 for s in run.nstops)
+    assert bool(np.all(np.asarray(run.pk.active)))
+    assert (run.atol_xy, run.atol_z) == (5e-3, 2.0)
+    matched.compare(run)
+
+
+def test_max_deviation_reports_worst_live_particle():
+    """max_deviation takes the max over steps and live particles only."""
+    a = [np.zeros((3, 3)), np.zeros((3, 3))]
+    b = [np.zeros((3, 3)), np.array([[0.1, 0.0, 0.0],
+                                     [0.0, 0.2, 3.0],
+                                     [9.0, 9.0, 9.0]])]
+    assert matched.max_deviation(a, b, [0, 0, 1]) == (0.1, 0.2, 3.0)
+    run = matched.MatchedRun(None, a, [], [0, 0, 1], b, 5e-3, 2.0)
+    with pytest.raises(AssertionError):
+        matched.compare(run)

@@ -14,9 +14,8 @@ actually run.  These tests pin that path:
   interpol_wind.f90:194-213), which enters solely through the
   mesoscale term (turbmesoscale=0.16); positions must stay within the
   bound that difference implies;
-- the sigma-estimator difference itself is measured and bounded
-  (VERDICT r4 item 10: the `core/interp.py` docstring claim is now a
-  number, asserted here).
+- the sigma-estimator difference itself is measured and bounded (the
+  `core/interp.py` docstring claim is a number, asserted here).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,29 +24,30 @@ import pytest
 from flexpart_tpu.core.interp import (build_step_tables_quad,
                                       horiz_weights, interp_wind_legacy,
                                       sample_all_quad, vert_weights)
+from flexpart_tpu.validation import matched
 from flexpart_tpu.validation.legacy_rng import MAXRAND
 
-from test_matched_rng import (LSYNC, MEMTIME, _params, _run_kernel_legacy,
-                              _start_positions, met_setup)  # noqa: F401
+
+@pytest.fixture(scope="module")
+def met_setup():
+    return matched.met_setup()
 
 
 def _run_pair(grid, z0, z1, x, y, z, nsteps, cfg, prm, table=None):
     """Run the legacy-interp and quad-interp kernels with identical
     particles and identical legacy draw streams."""
-    import test_matched_rng as m
-
     if table is not None:
-        orig = m.make_rannumb
-        m.make_rannumb = lambda n, s: table
+        orig = matched.make_rannumb
+        matched.make_rannumb = lambda n, s: table
     try:
-        _, traj_leg = _run_kernel_legacy(grid, z0, z1, x, y, z, nsteps,
-                                         cfg, prm)
+        _, traj_leg = matched.run_kernel_legacy(grid, z0, z1, x, y, z,
+                                                nsteps, cfg, prm)
         cfg_q = cfg._replace(legacy_quad=True, met_bf16=False)
-        _, traj_quad = _run_kernel_legacy(grid, z0, z1, x, y, z, nsteps,
-                                          cfg_q, prm)
+        _, traj_quad = matched.run_kernel_legacy(grid, z0, z1, x, y, z,
+                                                 nsteps, cfg_q, prm)
     finally:
         if table is not None:
-            m.make_rannumb = orig
+            matched.make_rannumb = orig
     return traj_leg, traj_quad
 
 
@@ -59,9 +59,9 @@ def test_quad_deterministic_core(met_setup, turbswitch, ifine):
     sampling, vertical reflection and the Petterssen corrector all
     agree (advance.f90:276-615,816-986 deterministic skeleton)."""
     grid, z0, z1, height = met_setup
-    cfg, prm, _ = _params(grid, turbswitch, ifine)
+    cfg, prm, _ = matched.params(grid, turbswitch, ifine)
     n = 28
-    x, y, z = _start_positions(n)
+    x, y, z = matched.start_positions(n)
     zeros = np.zeros(MAXRAND + 1, np.float32)
     traj_leg, traj_quad = _run_pair(grid, z0, z1, x, y, z, 4, cfg, prm,
                                     table=zeros)
@@ -84,9 +84,9 @@ def test_quad_full_stochastic_step(met_setup):
     |dsig| * turbmesoscale * lsync per step (a few hundred metres
     horizontally, i.e. ~1e-2 grid units on the 1-degree test grid)."""
     grid, z0, z1, height = met_setup
-    cfg, prm, _ = _params(grid, True, 4)
+    cfg, prm, _ = matched.params(grid, True, 4)
     n = 28
-    x, y, z = _start_positions(n)
+    x, y, z = matched.start_positions(n)
     traj_leg, traj_quad = _run_pair(grid, z0, z1, x, y, z, 4, cfg, prm)
     for k in range(len(traj_leg)):
         np.testing.assert_allclose(traj_quad[k][:, 0], traj_leg[k][:, 0],

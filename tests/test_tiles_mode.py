@@ -2,7 +2,7 @@
 2x4 domain-decomposed mesh (met-field tiles + tile-owned particles +
 ppermute migration) must reproduce the serial run over a full output
 cycle including wet+dry deposition — the timemanager_mpi.f90:211-858
-semantics on tiles (VERDICT r3 task 2)."""
+semantics on tiles."""
 import glob
 
 import jax
@@ -113,7 +113,7 @@ def test_tiled_turbulent_smoke(tmp_path):
 
 def test_tiles_rejects_unsupported(tmp_path):
     """Convection/OH/receptors/flux/splitting/domain-fill are
-    tile-supported since r5; nested met grids and backward deposition
+    tile-supported; nested met grids and backward deposition
     remain dp-only."""
     with pytest.raises(ValueError, match="nested met"):
         grid = make_grid(nx=37, ny=18, nlev=15, dx=10.0, dy=10.0)
@@ -243,7 +243,7 @@ def _ensemble(sim):
 
 
 def test_tiled_split_oh_receptors_flux_match_serial(tmp_path):
-    """The r5 tile feature matrix, deterministic part: particle
+    """The tile feature matrix, deterministic part: particle
     splitting (tile-local slot allocation), OH chemistry, receptor
     sampling and gross fluxes must reproduce the serial run on the 2x4
     tile mesh (timemanager_mpi.f90:211-858 full-physics parity;
